@@ -3,8 +3,7 @@
 Demonstrates that camera parameters are *traced inputs* to every
 engine — moving the camera re-renders without recompiling (the
 reference's interactive-camera property, app.rs:102-121, in batch
-form).  One process renders all frames; the fused engine makes each
-frame a single TPU dispatch.
+form).  One process renders all frames, each one jitted dispatch.
 
 Usage:
     python examples/turntable.py --scene book_cover --frames 24 \
@@ -19,12 +18,12 @@ import time
 from PIL import Image  # fail before rendering, not after
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-import wavefront_path_tracer_tpu.utils.compile_cache  # noqa: F401,E402
 
 from wavefront_path_tracer_tpu.renderer import render  # noqa: E402
 from wavefront_path_tracer_tpu.scene import CameraController  # noqa: E402
 from wavefront_path_tracer_tpu.scene.scene import get_scene  # noqa: E402
-from wavefront_path_tracer_tpu.utils.config import RenderConfig  # noqa: E402
+from wavefront_path_tracer_tpu.utils.config import (  # noqa: E402
+    DEFAULT_ENGINE, DEFAULT_INTERSECTOR, ENGINES, INTERSECTORS, RenderConfig)
 from wavefront_path_tracer_tpu.utils.image import to_u8  # noqa: E402
 
 
@@ -35,9 +34,9 @@ def main():
     p.add_argument("--width", type=int, default=320)
     p.add_argument("--height", type=int, default=180)
     p.add_argument("--spp", type=int, default=64)
-    p.add_argument("--engine", default="fused")
-    p.add_argument("--intersector", default="baked")
-    p.add_argument("--clusters", type=int, default=0)
+    p.add_argument("--engine", default=DEFAULT_ENGINE, choices=ENGINES)
+    p.add_argument("--intersector", default=DEFAULT_INTERSECTOR,
+                   choices=INTERSECTORS)
     p.add_argument("--radius", type=float, default=3.0)
     p.add_argument("--elevation", type=float, default=1.2)
     p.add_argument("--center", type=float, nargs=3, default=[0.0, 0.0, -1.0])
@@ -49,8 +48,7 @@ def main():
     cfg = RenderConfig(width=args.width, height=args.height,
                        samples_per_pixel=args.spp,
                        samples_per_frame=args.spp, max_bounces=16,
-                       engine=args.engine, intersector=args.intersector,
-                       baked_clusters=args.clusters)
+                       engine=args.engine, intersector=args.intersector)
     scene = get_scene(args.scene)
     cx, cy, cz = args.center
     frames = []

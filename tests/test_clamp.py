@@ -8,7 +8,7 @@ from wavefront_path_tracer_tpu.renderer import render
 from tests.test_engines import BASE, _cover_camera
 
 
-@pytest.mark.parametrize("engine", ["megakernel", "wavefront", "fused"])
+@pytest.mark.parametrize("engine", ["megakernel", "wavefront"])
 def test_clamp_bounds_samples(book_cover_scene, engine):
     """With clamp C every per-sample contribution is <= C, so the
     spp-sample accumulation is <= C * spp."""
@@ -22,7 +22,7 @@ def test_clamp_bounds_samples(book_cover_scene, engine):
     assert off.accumulated.max() > r.accumulated.max()
 
 
-@pytest.mark.parametrize("engine", ["megakernel", "wavefront", "fused"])
+@pytest.mark.parametrize("engine", ["megakernel", "wavefront"])
 def test_huge_clamp_is_identity(book_cover_scene, engine):
     cfg = BASE.replace(engine=engine, samples_per_pixel=2,
                        samples_per_frame=2)

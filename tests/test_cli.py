@@ -73,46 +73,16 @@ def test_cli_resume_rejects_mismatched_checkpoint(tmp_path):
         main(argv)
 
 
-def test_cli_fused_bvh_rejected(tmp_path):
-    argv = _args(tmp_path, "--intersector", "bvh")
-    argv[argv.index("--engine") + 1] = "fused"
-    assert main(argv) == 2
-
-
 def test_resolve_intersector_auto_policy():
+    """'auto' resolves to the production default intersector (the
+    measured fastest on an H100); explicit choices pass through."""
     from wavefront_path_tracer_tpu.cli import resolve_intersector
-    from wavefront_path_tracer_tpu.scene.mesh import mesh_demo_scene
-    from wavefront_path_tracer_tpu.scene.scene import (
-        book_checker,
-        book_cover,
-        procedural_spheres,
-    )
+    from wavefront_path_tracer_tpu.utils.config import DEFAULT_INTERSECTOR
 
-    # Small scene -> baked (bake is ~30-60 s and 1.3-3x faster).
-    it, cl, _ = resolve_intersector("fused", "auto", 0, book_cover(), None)
-    assert (it, cl) == ("baked", -1)
-    # Big scene -> dynamic culled (structure-only ~1-min compile).
-    it, cl, _ = resolve_intersector(
-        "fused", "auto", 0, procedural_spheres(5000), None)
-    assert (it, cl) == ("bruteforce", -1)
-    # Textured scene -> baked (fused evaluates textures only baked).
-    it, cl, _ = resolve_intersector("fused", "auto", 0, book_checker(), None)
-    assert it == "baked"
-    # Explicit --clusters wins over the auto default.
-    it, cl, _ = resolve_intersector(
-        "fused", "auto", 8, procedural_spheres(5000), None)
-    assert (it, cl) == ("bruteforce", 8)
-    # XLA engines take their fast default.
-    it, cl, _ = resolve_intersector("megakernel", "auto", 0,
-                                    book_cover(), None)
-    assert it == "bruteforce"
-    # Triangle scene + plain bruteforce (no clusters) upgrades to baked;
-    # with clusters > 0 the dynamic culled path traces triangles as-is.
-    scene, tris = mesh_demo_scene()
-    it, cl, notes = resolve_intersector("fused", "bruteforce", 0, scene, tris)
-    assert it == "baked" and notes
-    it, cl, notes = resolve_intersector("fused", "bruteforce", 16, scene, tris)
-    assert (it, cl) == ("bruteforce", 16) and not notes
+    it, notes = resolve_intersector("auto")
+    assert it == DEFAULT_INTERSECTOR and notes
+    for explicit in ("bvh", "bruteforce"):
+        assert resolve_intersector(explicit) == (explicit, [])
 
 
 def test_cli_aov(tmp_path):
@@ -147,8 +117,7 @@ def test_cli_scene_default_camera(tmp_path):
 def test_cli_defaults_match_render_config():
     """Every CLI flag that maps onto a RenderConfig field must default
     to the RenderConfig default (or to None = "use the config default"),
-    so flag/config drift like the round-4 --tex-lut 2048-vs-8192 split
-    cannot recur."""
+    so the flags and the config cannot drift apart."""
     import dataclasses
 
     from wavefront_path_tracer_tpu.cli import build_parser
@@ -161,11 +130,10 @@ def test_cli_defaults_match_render_config():
         "width": "width", "height": "height",
         "spp": "samples_per_pixel", "spf": "samples_per_frame",
         "max_bounces": "max_bounces", "frame": "frame",
-        "block_tiles": "block_tiles", "recluster": "recluster",
+        "engine": "engine", "intersector": "intersector",
         "sampler": "sampler", "rr": "rr_start_bounce",
         "rr_floor": "rr_floor", "clamp": "clamp",
-        "until_delta": "stop_delta", "tex_lut": "tex_lut_max",
-        "winner_hint": "winner_hint",
+        "until_delta": "stop_delta",
     }
     for dest, field in mapping.items():
         cli_default = getattr(args, dest)
@@ -174,4 +142,4 @@ def test_cli_defaults_match_render_config():
         assert cli_default == fields[field], (
             f"--{dest.replace('_', '-')} defaults to {cli_default!r} but "
             f"RenderConfig.{field} defaults to {fields[field]!r}")
-    assert cfg.tex_lut_max == 8192  # the documented knee (exp/texlut.py)
+    assert (cfg.engine, cfg.intersector) == (args.engine, args.intersector)

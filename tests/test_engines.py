@@ -124,8 +124,9 @@ def test_drain_threshold_biases_but_runs(book_cover_scene, oracle_result):
 
 
 def test_material_split_identical(book_cover_scene, oracle_result):
-    """Per-material shade split (reference TODO) matches the fused-shade
-    path bit-for-bit: same draws, same math, different partitioning."""
+    """Per-material shade split (reference TODO) matches the branchless
+    shade path bit-for-bit: same draws, same math, different
+    partitioning."""
     wf = _render(
         book_cover_scene, _cover_camera(),
         BASE.replace(engine="wavefront", material_split=True),
@@ -177,24 +178,9 @@ def test_bounce_histogram(book_cover_scene):
     assert hist[-1] < hist[0]
 
 
-def test_bvh_on_tpu_backend_warns(book_cover_scene, monkeypatch):
-    """The XLA BVH path is a measured 1000x performance trap on TPU
-    (BENCHMARKS.md engine table): asking wavefront/megakernel for
-    intersector='bvh' on a non-CPU backend must warn up front."""
-    import jax
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    cc = _cover_camera()
-    with pytest.warns(RuntimeWarning, match="performance trap"):
-        Renderer(book_cover_scene, cc, BASE.replace(
-            engine="wavefront", intersector="bvh"))
-    with pytest.warns(RuntimeWarning, match="performance trap"):
-        Renderer(book_cover_scene, cc, BASE.replace(
-            engine="megakernel", intersector="bvh"))
-
-
 def test_bvh_on_cpu_backend_does_not_warn(book_cover_scene):
-    """On CPU (the oracle backend) the BVH engines are legitimate."""
+    """The BVH is the production intersector: a BVH renderer is
+    constructed without warnings."""
     import warnings as _warnings
 
     cc = _cover_camera()
@@ -206,12 +192,11 @@ def test_bvh_on_cpu_backend_does_not_warn(book_cover_scene):
 
 def test_negative_radius_bubble_parity():
     """Negative-radius (inside-out) spheres through every engine
-    (ADVICE r3: the any_neg sign-only inv_r branch had no suite scene).
+    (the hollow-bubble trick must stay a real, visible sphere).
     book_bubble is book_cover with the hollow bubble as radius -0.4
     instead of inverted IOR.  wavefront must stay bit-identical to the
-    megakernel; fused/baked (packed winner attrs + sign-only inv_r +
-    far-root retention for the inside-out sphere) within the usual
-    summation-order band."""
+    megakernel; the BVH intersector (|r| AABBs, far-root retention for
+    the inside-out sphere) within the usual summation-order band."""
     from wavefront_path_tracer_tpu.scene import book_bubble
 
     scene = book_bubble()
@@ -221,11 +206,12 @@ def test_negative_radius_bubble_parity():
     assert np.isfinite(mk.accumulated).all()
     wf = _render(scene, cc, cfg.replace(engine="wavefront"))
     np.testing.assert_array_equal(wf.accumulated, mk.accumulated)
-    fu = _render(scene, cc, cfg.replace(engine="fused", intersector="baked"))
-    assert rmse(fu.image, mk.image) < 2e-3
-    cu = _render(scene, cc, cfg.replace(engine="fused", intersector="baked",
-                                        baked_clusters=16))
-    assert rmse(cu.image, mk.image) < 2e-3
+    bv = _render(scene, cc, cfg.replace(engine="wavefront",
+                                        intersector="bvh"))
+    assert rmse(bv.image, mk.image) < 2e-3
+    bm = _render(scene, cc, cfg.replace(engine="megakernel",
+                                        intersector="bvh"))
+    np.testing.assert_array_equal(bm.accumulated, bv.accumulated)
     # The bubble is visibly there: the render differs from a
     # solid-glass variant (guards against the inside-out sphere being
     # silently skipped by elision or the sign-only inv_r path).

@@ -103,52 +103,3 @@ def test_sky_gradient_endpoints():
     np.testing.assert_allclose(np.asarray(up)[0], [0.5, 0.7, 1.0], atol=1e-6)
     np.testing.assert_allclose(np.asarray(down)[0], [1.0, 1.0, 1.0], atol=1e-6)
 
-
-def test_t2_elidable_mask():
-    """Far-root elision safety proof (pallas_kernels._t2_elidable):
-    elide only spheres no reachable ray can be inside of — opaque,
-    fuzz-free, and with no other primitive's surface strictly
-    penetrating their interior (external tangency, e.g. RTIOW spheres
-    resting on the ground, has penetration 0 and stays elidable)."""
-    from wavefront_path_tracer_tpu.ops.pallas_kernels import _t2_elidable
-
-    centers = np.array([
-        [0.0, -1000.0, 0.0],   # 0 ground, Lambertian
-        [0.0, 0.2, 0.0],       # 1 resting on ground (tangent): safe
-        [4.0, 0.2, 0.0],       # 2 metal fuzz=0 resting: safe
-        [8.0, 0.2, 0.0],       # 3 metal fuzz>0: UNSAFE (self re-entry)
-        [12.0, 0.2, 0.0],      # 4 dielectric: UNSAFE
-        [16.0, 0.2, 0.0],      # 5 penetrated by 6: UNSAFE
-        [16.1, 0.2, 0.0],      # 6 penetrates 5 (and vice versa)
-        [20.0, 0.2, 0.0],      # 7 contains tiny sphere 8: UNSAFE
-        [20.0, 0.2, 0.0],      # 8 inside 7; 7's surface outside it: safe
-    ], np.float64)
-    radii = np.array([1000.0, 0.2, 0.2, 0.2, 0.2, 0.2, 0.2, 0.2, 0.05])
-    mat = np.array([0.0, 0.0, 1.0, 1.0, 2.0, 0.0, 0.0, 0.0, 0.0])
-    fuzz = np.array([0.0, 0.0, 0.0, 0.3, 0.0, 0.0, 0.0, 0.0, 0.0])
-
-    safe = _t2_elidable(centers, radii, mat, fuzz)
-
-    # An opaque negative-radius (inside-out) sphere keeps its far root.
-    neg = _t2_elidable(np.array([[0.0, 0.0, 0.0]]), np.array([-2.0]),
-                       np.array([0.0]), np.array([0.0]))
-    assert not neg[0]
-
-    # Ground: tangent contacts only (1-8 are far apart or tangent).
-    assert safe[0] and safe[1] and safe[2]
-    assert not safe[3]          # fuzzy metal
-    assert not safe[4]          # dielectric
-    assert not safe[5] and not safe[6]  # mutual penetration
-    assert not safe[7]          # contains 8's surface
-    assert safe[8]              # 7's surface lies outside 8
-
-    # A triangle slicing through a sphere disables elision; a distant
-    # one does not.
-    class Tri:
-        num_triangles = 1
-        v0 = np.array([[3.9, 0.2, -1.0]])
-        e1 = np.array([[0.2, 0.0, 0.0]])
-        e2 = np.array([[0.0, 0.0, 2.0]])
-
-    safe_t = _t2_elidable(centers, radii, mat, fuzz, triangles=Tri())
-    assert not safe_t[2] and safe_t[1]

@@ -88,26 +88,6 @@ def test_mesh_scene_renders_and_engines_agree():
     assert not np.allclose(no_tris.accumulated, mk.accumulated)
 
 
-def test_fused_rejects_triangles_clearly():
-    scene, tris = mesh_demo_scene()
-    with pytest.raises(NotImplementedError, match="fused"):
-        render(scene, _mesh_camera(), CFG.replace(engine="fused"),
-               triangles=tris)
-
-
-def test_fused_baked_traces_triangles():
-    from wavefront_path_tracer_tpu.utils.image import rmse
-
-    scene, tris = mesh_demo_scene()
-    cc = _mesh_camera()
-    mk = render(scene, cc, CFG.replace(engine="megakernel"), triangles=tris)
-    fz = render(scene, cc, CFG.replace(engine="fused", intersector="baked"),
-                triangles=tris)
-    assert np.isfinite(fz.accumulated).all()
-    assert abs(fz.accumulated.mean() - mk.accumulated.mean()) < 2e-3
-    assert rmse(fz.image, mk.image) < 5e-3
-
-
 def test_triangles_with_bvh_spheres():
     """Triangles compose with the BVH sphere intersector too."""
     scene, tris = mesh_demo_scene()
@@ -121,9 +101,10 @@ def test_triangles_with_bvh_spheres():
 
 
 def test_gen_obj_roundtrip_and_fused_parity(tmp_path):
-    """Procedural OBJ (examples/gen_obj.py) -> load_obj -> fused
-    dynamic-culled render matches the megakernel oracle.  Small-scale
-    twin of the 50k-triangle benchmark config (BASELINE config 5)."""
+    """Procedural OBJ (examples/gen_obj.py) -> load_obj -> the
+    production wavefront/BVH render matches the megakernel oracle.
+    Small-scale twin of the 50k-triangle benchmark config (BASELINE
+    config 5)."""
     import subprocess
     import sys
 
@@ -150,44 +131,8 @@ def test_gen_obj_roundtrip_and_fused_parity(tmp_path):
                       samples_per_frame=2)
     mk = render(scene, cc, cfg.replace(engine="megakernel"), triangles=tris)
     fz = render(scene, cc,
-                cfg.replace(engine="fused", intersector="bruteforce",
-                            baked_clusters=16),
+                cfg.replace(engine="wavefront", intersector="bvh"),
                 triangles=tris)
     assert np.isfinite(fz.accumulated).all()
     assert mk.image.std() > 0.01  # the knot is actually in frame
-    assert rmse(fz.image, mk.image) < 5e-3
-
-
-def test_tri_super_sweep_matches_oracle():
-    """>64 triangle clusters switches the dynamic-culled sweep to the
-    rolled super-gated form (fori over _DYN_SUPER-cluster batches, the
-    whole batch inside one pl.when on the supercluster AABB); the image
-    must stay oracle-equal.  Covers the triangle twin of
-    test_dynamic_culled_fori_sweep_matches_unculled."""
-    from examples.gen_obj import torus_knot
-
-    from wavefront_path_tracer_tpu.utils.image import rmse
-
-    v, f = torus_knot(1120)
-    b = MeshSceneBuilder()
-    ground = b.lambertian([0.5, 0.5, 0.5])
-    b.sphere([0.0, -1000.0, 0.0], 1000.0, ground)
-    b.mesh(v, f, b.lambertian([0.7, 0.3, 0.2]))
-    scene, tris = b.build_mesh_scene()
-    assert (tris.num_triangles + 15) // 16 > 64  # super path engaged
-
-    cc = CameraController.book_one_final()
-    cc.camera = cc.camera.look_at([0.0, 1.5, 4.0], [0.0, 0.0, 0.0])
-    cc.vfov_deg = 45.0
-    cc.defocus_angle_deg = 0.0
-    cfg = CFG.replace(width=40, height=24, samples_per_pixel=2,
-                      samples_per_frame=2, max_bounces=5)
-    mk = render(scene, cc, cfg.replace(engine="megakernel"),
-                triangles=tris)
-    fz = render(scene, cc,
-                cfg.replace(engine="fused", intersector="bruteforce",
-                            baked_clusters=16),
-                triangles=tris)
-    assert np.isfinite(fz.accumulated).all()
-    assert mk.image.std() > 0.01
     assert rmse(fz.image, mk.image) < 5e-3

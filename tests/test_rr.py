@@ -43,7 +43,8 @@ def test_rr_negative_rejected():
 
 def test_rr_engines_agree(book_cover_scene):
     """megakernel and wavefront share the roulette stream bit-exactly;
-    the fused kernel matches statistically (Mosaic float ULPs)."""
+    the BVH intersector matches statistically (its float ordering
+    differs, so a few near-tie paths diverge)."""
     cfg = BASE.replace(samples_per_pixel=4, samples_per_frame=4,
                        rr_start_bounce=2, rr_floor=0.3)
     mk = render(book_cover_scene, _cover_camera(),
@@ -51,8 +52,8 @@ def test_rr_engines_agree(book_cover_scene):
     wf = render(book_cover_scene, _cover_camera(),
                 cfg.replace(engine="wavefront"))
     np.testing.assert_array_equal(mk.accumulated, wf.accumulated)
-    fz = render(book_cover_scene, _cover_camera(),
-                cfg.replace(engine="fused", intersector="baked"))
-    assert np.isfinite(fz.accumulated).all()
-    diff = np.abs(fz.accumulated - mk.accumulated).max(axis=-1)
+    bv = render(book_cover_scene, _cover_camera(),
+                cfg.replace(engine="wavefront", intersector="bvh"))
+    assert np.isfinite(bv.accumulated).all()
+    diff = np.abs(bv.accumulated - mk.accumulated).max(axis=-1)
     assert (diff > 1e-3).mean() < 0.05

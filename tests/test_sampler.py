@@ -9,7 +9,7 @@ from tests.test_engines import BASE, _cover_camera
 
 def test_stratified_engines_agree(book_cover_scene):
     """The stratum remap is shared formula + shared streams, so the XLA
-    engines stay bit-identical, and the fused engine statistical."""
+    engines stay bit-identical, and the BVH intersector statistical."""
     cfg = BASE.replace(samples_per_pixel=4, samples_per_frame=4,
                        sampler="stratified")
     mk = render(book_cover_scene, _cover_camera(),
@@ -18,7 +18,7 @@ def test_stratified_engines_agree(book_cover_scene):
                 cfg.replace(engine="wavefront"))
     np.testing.assert_array_equal(mk.accumulated, wf.accumulated)
     fz = render(book_cover_scene, _cover_camera(),
-                cfg.replace(engine="fused"))
+                cfg.replace(engine="wavefront", intersector="bvh"))
     assert np.isfinite(fz.accumulated).all()
     diff = np.abs(fz.accumulated - mk.accumulated).max(axis=-1)
     assert (diff > 1e-3).mean() < 0.05

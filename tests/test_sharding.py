@@ -89,27 +89,6 @@ def test_indivisible_pixels_rejected(book_cover_scene):
         )
 
 
-def test_fused_engine_shards(book_cover_scene):
-    """The flagship Pallas engine under shard_map (pixel + sample DP)."""
-    cc = _camera()
-    cfg = CFG.replace(engine="fused")
-    single = render(book_cover_scene, cc, cfg)
-    mesh = make_mesh(8, sample_axis=2)
-    rad = _sharded(book_cover_scene, cc, cfg, mesh)
-    np.testing.assert_allclose(
-        rad, single.accumulated.reshape(-1, 3), rtol=1e-5, atol=1e-6
-    )
-
-
-def test_fused_baked_engine_shards(book_cover_scene):
-    cc = _camera()
-    cfg = CFG.replace(engine="fused", intersector="baked")
-    single = render(book_cover_scene, cc, cfg)
-    mesh = make_mesh(4, sample_axis=1)
-    rad = _sharded(book_cover_scene, cc, cfg, mesh)
-    np.testing.assert_array_equal(rad, single.accumulated.reshape(-1, 3))
-
-
 def test_multihost_dryrun():
     """Two CPU processes x 4 virtual devices: the multi-host mesh path
     (parallel/multihost.py) renders tile bands bit-identical to a
@@ -138,22 +117,6 @@ def test_multihost_dryrun():
         assert f"process {i}: OK" in out
 
 
-def test_sharded_fused_dynamic_culled():
-    """The dynamic-culled intersector works under shard_map (tables
-    closure-captured, replicated)."""
-    from wavefront_path_tracer_tpu.scene.scene import get_scene
-
-    scene = get_scene("procedural", n=96, seed=3)
-    cfg = CFG.replace(engine="fused", intersector="bruteforce",
-                      baked_clusters=8)
-    cc = _camera()
-    single = render(scene, cc, cfg)
-    mesh = make_mesh(4, sample_axis=1)
-    rad = _sharded(scene, cc, cfg, mesh)
-    d = np.abs(rad - single.accumulated.reshape(-1, 3)).max(axis=-1)
-    assert (d > 1e-3).mean() < 0.01
-
-
 def test_sharded_respects_clamp(book_cover_scene):
     """Config knobs (here the firefly clamp) flow through the sharded
     path identically to single-device rendering."""
@@ -164,3 +127,23 @@ def test_sharded_respects_clamp(book_cover_scene):
     np.testing.assert_array_equal(
         sharded, single.accumulated.reshape(-1, 3))
     assert (sharded <= cfg.samples_per_pixel * 0.2 + 1e-5).all()
+
+
+@pytest.mark.parametrize("tiles,samples", [(4, 1), (2, 2), (1, 4)])
+@pytest.mark.parametrize("intersector", ["bruteforce", "bvh"])
+@pytest.mark.parametrize("engine", ["wavefront", "megakernel"])
+def test_sharded_xla_matches_single(book_cover_scene, engine, intersector,
+                                    tiles, samples):
+    """Both XLA engines and both intersectors under shard_map on four
+    devices: a tiles-only mesh is bit-identical to one device; a mesh
+    with a samples axis reorders the psum's float adds."""
+    cc = _camera()
+    cfg = CFG.replace(engine=engine, intersector=intersector)
+    single = render(book_cover_scene, cc, cfg).accumulated.reshape(-1, 3)
+    mesh = make_mesh(4, sample_axis=samples)
+    assert dict(mesh.shape) == {"tiles": tiles, "samples": samples}
+    rad = _sharded(book_cover_scene, cc, cfg, mesh)
+    if samples == 1:
+        np.testing.assert_array_equal(rad, single)
+    else:
+        np.testing.assert_allclose(rad, single, rtol=1e-5, atol=1e-6)

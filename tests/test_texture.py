@@ -26,7 +26,7 @@ def test_unit_checker_select():
     # sin products: (+,+,+) -> positive -> first color.
     assert not bool(checker_select(0.1, 0.1, 0.1, 10.0))
     assert bool(checker_select(0.1, 0.1, -0.1, 10.0))
-    # scale 0 never selects (fused kernels rely on this).
+    # scale 0 never selects.
     assert not bool(checker_select(0.5, -0.5, 0.5, 0.0))
 
 
@@ -62,45 +62,6 @@ def test_checker_engines_bit_identical():
     assert mk.image.std() > 0.05
 
 
-def test_checker_fused_baked_matches_oracle():
-    scene = _checker_scene()
-    cc = _cover_camera()
-    mk = render(scene, cc, BASE.replace(engine="megakernel"))
-    fz = render(scene, cc, BASE.replace(engine="fused", intersector="baked"))
-    assert rmse(fz.image, mk.image) < 5e-3
-
-
-def test_checker_fused_culled_matches_oracle():
-    # Enough spheres that the cull hierarchy engages; checker-only
-    # textures keep the bake small.
-    rng = np.random.RandomState(5)
-    b = SceneBuilder()
-    ground = b.lambertian([0.2, 0.3, 0.1],
-                          texture=("checker", [0.9, 0.9, 0.9], 3.0))
-    b.sphere([0.0, -1000.0, 0.0], 1000.0, ground)
-    for _ in range(70):
-        c = [rng.uniform(-6, 6), 0.25, rng.uniform(-6, 6)]
-        b.sphere(c, 0.25, b.lambertian(rng.rand(3)))
-    scene = b.build()
-    cc = _cover_camera()
-    cfg = BASE.replace(samples_per_pixel=2, samples_per_frame=2)
-    mk = render(scene, cc, cfg.replace(engine="megakernel"))
-    fz0 = render(scene, cc, cfg.replace(engine="fused", intersector="baked"))
-    fz = render(scene, cc, cfg.replace(engine="fused", intersector="baked",
-                                       baked_clusters=8))
-    # Culling is conservative: near-identical to the unculled kernel
-    # (a handful of near-tangent hits flip on fma/rounding context —
-    # on the real TPU the two were measured bit-identical).
-    dd = np.abs(fz.accumulated - fz0.accumulated).max(axis=-1)
-    assert (dd > 1e-3).mean() < 0.01
-    # vs the XLA oracle, checker-BOUNDARY pixels flip on ULP differences
-    # in the hit point (full color swap, not noise), so the gate is
-    # "almost all pixels agree" rather than a tight global RMSE.
-    diff = np.abs(fz.image - mk.image).max(axis=-1)
-    assert (diff > 0.05).mean() < 0.02
-    assert rmse(fz.image, mk.image) < 5e-2
-
-
 def test_image_texture_renders_on_xla_engines():
     scene = get_scene("book_checker")  # includes the UV-pattern sphere
     cc = _cover_camera()
@@ -112,8 +73,8 @@ def test_image_texture_renders_on_xla_engines():
 
 
 def _image_scene():
-    """Small scene dominated by one image-textured sphere (a LUT-sized
-    16x16 image, so the fused bake is lossless apart from UV approx)."""
+    """Small scene dominated by one image-textured sphere (a 16x16
+    image)."""
     u = np.linspace(0.0, 1.0, 16)[None, :, None]
     v = np.linspace(0.15, 1.0, 16)[:, None, None]
     img = (np.concatenate([u, 1.0 - u, np.full_like(u, 0.35)], -1)
@@ -126,131 +87,19 @@ def _image_scene():
     return b.build()
 
 
-def test_tex_lut_budget_controls_fidelity():
-    """tex_lut_max trades LUT resolution for select-tree cost: with a
-    64x64 source image, a 4096-texel budget is lossless (matches the
-    XLA oracle as tightly as the 16x16 case) while a 64-texel budget is
-    visibly coarser — fidelity must be monotone in the budget."""
-    u = np.linspace(0.0, 1.0, 64)[None, :, None]
-    v = np.linspace(0.15, 1.0, 64)[:, None, None]
-    img = (np.concatenate([u, 1.0 - u, np.full_like(u, 0.35)], -1)
-           * v).astype(np.float32)
-    b = SceneBuilder()
-    b.sphere([0.0, -100.5, -1.0], 100.0, b.lambertian([0.4, 0.4, 0.4]))
-    b.sphere([0.0, 0.0, -1.2], 0.5, b.lambertian([1.0, 1.0, 1.0],
-                                                 texture=img))
-    scene = b.build()
-    cc = _cover_camera()
-    cfg = BASE.replace(samples_per_pixel=2, samples_per_frame=2)
-    mk = render(scene, cc, cfg.replace(engine="megakernel"))
-    errs = {}
-    for budget in (64, 4096):
-        fz = render(scene, cc, cfg.replace(engine="fused",
-                                           intersector="baked",
-                                           tex_lut_max=budget))
-        assert np.isfinite(fz.accumulated).all()
-        errs[budget] = rmse(fz.image, mk.image)
-    assert errs[4096] < errs[64]
-    assert errs[4096] < 5e-2
-
-
-def test_image_texture_fused_baked():
-    """The fused engine bakes image textures as when-gated bounded LUTs
-    (pallas_kernels._apply_image_textures, RGB packed 10:10:10 per
-    int32 select-tree leaf).  With a 16x16 image the LUT is exact up to
-    the 1/1023 pack quantization; only the UV binning (polynomial
-    acos/atan2 vs exact) can flip a boundary texel, so the gate is
-    statistical."""
-    scene = _image_scene()
-    cc = _cover_camera()
-    cfg = BASE.replace(samples_per_pixel=4, samples_per_frame=4)
-    mk = render(scene, cc, cfg.replace(engine="megakernel"))
-    fz = render(scene, cc, cfg.replace(engine="fused", intersector="baked"))
-    assert np.isfinite(fz.accumulated).all()
-    diff = np.abs(fz.image - mk.image).max(axis=-1)
-    assert (diff > 0.05).mean() < 0.03
-    assert rmse(fz.image, mk.image) < 5e-2
-
-
-def test_checker_fused_dynamic_culled():
-    """Checker textures ride the dynamic culled path's 24-column sphere
-    table (pack_culled_scene) — no per-scene compile needed."""
-    scene = get_scene("book_checker")
-    cc = _cover_camera()
-    cfg = BASE.replace(samples_per_pixel=4, samples_per_frame=4)
-    mk = render(scene, cc, cfg.replace(engine="megakernel"))
-    dyn = render(scene, cc, cfg.replace(engine="fused",
-                                        intersector="bruteforce",
-                                        baked_clusters=16))
-    assert np.isfinite(dyn.accumulated).all()
-    assert rmse(dyn.image, mk.image) < 5e-3
-
-
-def test_image_texture_fused_dynamic_culled():
-    """Image textures on the dynamic culled path: LUT select-trees are
-    per-texture immediates (O(texels) recompile on texture change, vs
-    the baked path's O(scene))."""
-    scene = _image_scene()
-    cc = _cover_camera()
-    cfg = BASE.replace(samples_per_pixel=4, samples_per_frame=4)
-    mk = render(scene, cc, cfg.replace(engine="megakernel"))
-    dyn = render(scene, cc, cfg.replace(engine="fused",
-                                        intersector="bruteforce",
-                                        baked_clusters=8))
-    assert np.isfinite(dyn.accumulated).all()
-    assert rmse(dyn.image, mk.image) < 5e-3
-
-
-def test_plain_dynamic_still_rejects_textures():
-    scene = _image_scene()
-    with pytest.raises(NotImplementedError, match="culled"):
-        render(scene, _cover_camera(),
-               BASE.replace(engine="fused", intersector="bruteforce",
-                            baked_clusters=0))
-
-
 def test_image_texture_full_res_gate_64spp():
-    """The texture-fidelity acceptance gate: when the LUT budget covers
-    the source resolution the fused engines match the XLA full-res
-    sampler to RMSE < 1e-3 at 64 spp (error = 1/1023 pack quantization
-    + polynomial-UV boundary flips, both well under the gate)."""
+    """The texture-fidelity acceptance gate: the production
+    wavefront/BVH path matches the megakernel oracle's full-res sampler
+    to RMSE < 1e-3 at 64 spp (the residual is float ordering between
+    the intersectors, which flips a few texel-boundary lookups)."""
     scene = _image_scene()
     cc = _cover_camera()
     cfg = BASE.replace(width=48, height=27, samples_per_pixel=64,
                        samples_per_frame=64)
     mk = render(scene, cc, cfg.replace(engine="megakernel"))
-    baked = render(scene, cc, cfg.replace(engine="fused",
-                                          intersector="baked"))
-    dyn = render(scene, cc, cfg.replace(engine="fused",
-                                        intersector="bruteforce",
-                                        baked_clusters=8))
-    assert rmse(baked.image, mk.image) < 1e-3
-    assert rmse(dyn.image, mk.image) < 1e-3
-
-
-def test_tex_lut_default_budget_bound():
-    """The default tex_lut_max (8192) must keep the fused LUT within a
-    stated bound of the XLA full-res oracle on a realistic mixed-content
-    256x128 texture (smooth gradient + low-freq bands + high-freq grid).
-    Device-measured curve (exp/texlut.py, TPU, 400x224@64): 512 ->
-    3.1e-2, 2048 -> 7.2e-3, default 8192 -> 3.0e-3, 32768 (full res)
-    -> 1.7e-4.  Same-stream comparison, so MC noise cancels and the
-    residual is pooling + 10:10:10 quantization + UV-binning flips."""
-    from exp.texlut import test_texture as mixed_texture
-
-    img = mixed_texture()
-    b = SceneBuilder()
-    b.sphere([0.0, -100.5, -1.0], 100.0, b.lambertian([0.4, 0.4, 0.4]))
-    b.sphere([0.0, 0.0, -1.2], 0.5, b.lambertian([1.0, 1.0, 1.0],
-                                                 texture=img))
-    scene = b.build()
-    cc = _cover_camera()
-    cfg = BASE.replace(width=100, height=56, samples_per_pixel=4,
-                       samples_per_frame=4)
-    mk = render(scene, cc, cfg.replace(engine="megakernel"))
-    from wavefront_path_tracer_tpu.utils.config import RenderConfig
-    assert RenderConfig().tex_lut_max == 8192  # the default under test
-    fz = render(scene, cc, cfg.replace(engine="fused",
-                                       intersector="baked"))
-    assert np.isfinite(fz.accumulated).all()
-    assert rmse(fz.image, mk.image) < 8e-3
+    wf_bvh = render(scene, cc, cfg.replace(engine="wavefront",
+                                           intersector="bvh"))
+    wf_bf = render(scene, cc, cfg.replace(engine="wavefront",
+                                          intersector="bruteforce"))
+    assert rmse(wf_bvh.image, mk.image) < 1e-3
+    assert rmse(wf_bf.image, mk.image) < 1e-3

@@ -1,22 +1,24 @@
-"""wavefront_path_tracer_tpu — a TPU-native wavefront path tracer.
+"""wavefront_path_tracer_tpu — a wavefront path tracer in JAX.
 
-A brand-new JAX/XLA/Pallas re-design of the capability surface of
+A JAX/XLA re-design of the capability surface of
 rchiaramo/wavefront_path_tracer (Rust + WGSL, single GPU): Shirley
 "Ray Tracing in One Weekend" scenes rendered with a wavefront
 (generate / extend / shade / miss / accumulate) integrator, a binned-SAH
 BVH, progressive accumulation, thin-lens defocus, and three material
-families (Lambertian / Metal / Dielectric).
+families (Lambertian / Metal / Dielectric).  It runs on NVIDIA GPUs
+(and on the CPU for tests).
 
-TPU-first design points (vs. the reference's GPU architecture):
+Design points (vs. the reference's wgpu architecture):
 
-* SIMT thread-per-ray kernels become vectorized lane-per-ray batches;
-  atomic queue appends become deterministic prefix-sum stream compaction.
+* Thread-per-ray kernels become vectorized lane-per-ray batches that XLA
+  compiles; atomic queue appends become deterministic stable-sort
+  stream compaction.
 * The host counter-readback bounce loop becomes an on-device
   ``lax.while_loop`` with fixed-capacity SoA queues — zero host syncs.
-* Multi-chip scaling (absent in the reference) is pixel/sample data
+* Multi-GPU scaling (absent in the reference) is pixel/sample data
   parallelism over a ``jax.sharding.Mesh`` with XLA collectives.
-* The hot extend+shade path has a fused Pallas kernel that keeps ray
-  queues and the whole sphere scene in VMEM.
+* Two engines: ``wavefront`` (production, the reference's five-stage
+  split) and ``megakernel`` (the per-pixel oracle).
 """
 
 __version__ = "0.1.0"

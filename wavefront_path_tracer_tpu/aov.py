@@ -46,10 +46,6 @@ def render_aovs(scene, camera, config: RenderConfig, triangles=None,
     loop so intersect intermediates stay bounded at any resolution.
     """
     cfg = config
-    if cfg.intersector not in ("bruteforce", "bvh"):
-        # AOVs run on the shared XLA ops; baked intersectors are a
-        # fused-engine concept.
-        cfg = cfg.replace(intersector="bruteforce")
     spp = int(spp if spp is not None else cfg.samples_per_pixel)
     arrays = (scene_arrays if scene_arrays is not None
               else prepare_scene(scene, cfg, triangles=triangles))

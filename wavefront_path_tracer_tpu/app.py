@@ -275,8 +275,7 @@ def repl(argv=None) -> int:
     scene, triangles, file_cam = build_scene(args)
     from wavefront_path_tracer_tpu.cli import resolve_intersector
 
-    intersector, clusters, notes = resolve_intersector(
-        args.engine, args.intersector, args.clusters, scene, triangles)
+    intersector, notes = resolve_intersector(args.intersector)
     for n in notes:
         print(n, file=sys.stderr)
     cc = CameraController.book_one_final()
@@ -288,7 +287,7 @@ def repl(argv=None) -> int:
     cfg = RenderConfig(width=args.width, height=args.height,
                        samples_per_pixel=args.spp, samples_per_frame=args.spf,
                        max_bounces=args.max_bounces, engine=args.engine,
-                       intersector=intersector, baked_clusters=clusters)
+                       intersector=intersector)
     session = InteractiveSession(scene, cc, cfg, triangles=triangles)
 
     print("commands: w/a/s/d/q/e move, r render-to-spp, p save png, x quit",

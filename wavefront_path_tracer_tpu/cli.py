@@ -12,7 +12,7 @@ Example::
 
     python -m wavefront_path_tracer_tpu.cli \
         --scene book_one_final --width 640 --height 360 --spp 64 \
-        --engine fused --out render.png
+        --out render.png
 """
 
 from __future__ import annotations
@@ -23,11 +23,18 @@ import time
 
 import numpy as np
 
+from wavefront_path_tracer_tpu.utils.config import (
+    DEFAULT_ENGINE,
+    DEFAULT_INTERSECTOR,
+    ENGINES,
+    INTERSECTORS,
+)
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="wavefront_path_tracer_tpu",
-        description="TPU-native wavefront path tracer",
+        description="Wavefront path tracer in JAX",
     )
     p.add_argument("--scene", default="book_one_final",
                    help="book_cover | book_one_final | procedural | "
@@ -41,55 +48,25 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--spheres", type=int, default=10000,
                    help="sphere count for --scene procedural")
     p.add_argument("--obj", default=None,
-                   help="render an OBJ file (triangle mesh; all engines — "
-                        "fused traces triangles with intersector 'baked' "
-                        "or the dynamic culled path)")
+                   help="render an OBJ file (triangle mesh; all engines)")
     p.add_argument("--obj-scale", type=float, default=1.0)
     p.add_argument("--width", type=int, default=400)
     p.add_argument("--height", type=int, default=225)
     p.add_argument("--spp", type=int, default=10)
     p.add_argument("--spf", type=int, default=1, help="samples per frame batch")
     p.add_argument("--max-bounces", type=int, default=50)
-    p.add_argument("--engine", default="fused",
-                   choices=["fused", "wavefront", "megakernel"])
-    p.add_argument("--intersector", default="bruteforce",
-                   choices=["bruteforce", "bvh", "baked", "auto"],
-                   help="baked (fused engine only) unrolls the scene into "
-                        "the kernel as constants: fastest, per-scene "
-                        "compile.  auto picks baked for small/textured "
-                        "scenes and the no-bake dynamic culled path for "
-                        "big ones (~1-min structure compile at 65-80%% of "
-                        "baked throughput)")
+    p.add_argument("--engine", default=DEFAULT_ENGINE, choices=ENGINES)
+    p.add_argument("--intersector", default=DEFAULT_INTERSECTOR,
+                   choices=INTERSECTORS + ("auto",),
+                   help="auto = the production default "
+                        f"({DEFAULT_INTERSECTOR}, fastest on an H100; "
+                        "PERF.md)")
     p.add_argument("--frame", type=int, default=0, help="RNG frame salt")
-    p.add_argument("--clusters", type=lambda v: -1 if v == "auto" else int(v),
-                   default=0, metavar="N|auto",
-                   help="fused/baked: leaf cluster size for hierarchical "
-                        "consensus culling (0 = brute force; 'auto' = "
-                        "measured optimum by primitive count: 16 under "
-                        "2000, 32 above)")
     p.add_argument("--sampler", default="random",
                    choices=("random", "stratified"),
                    help="AA sampler: 'random' (reference semantics) or "
                         "'stratified' (4x4 stratum AA jitter, unbiased, "
                         "lower variance at low spp; all engines)")
-    p.add_argument("--tex-lut", type=int, default=None, metavar="TEXELS",
-                   help="fused/baked: texel budget per image-texture "
-                        "LUT (higher = closer to the XLA engines' "
-                        "full-res sampling, costlier select tree; "
-                        "default: the RenderConfig default)")
-    p.add_argument("--winner-hint", action="store_true",
-                   help="fused/baked culled: prepass-test each lane's "
-                        "last winner cluster to tighten the cull cap "
-                        "for incoherent bounce rays")
-    p.add_argument("--recluster", type=int, default=0, metavar="K",
-                   help="fused: re-sort live rays by direction octant x "
-                        "origin Morton cell every K bounces (segment "
-                        "lengths double after the second), restoring "
-                        "whole-tile cull consensus for incoherent "
-                        "bounce rays — the big-scene lever (0 = off)")
-    p.add_argument("--block-tiles", type=int, default=32,
-                   help="fused: NxN pixel blocks per ray tile for cull "
-                        "coherence (0 = linear pixel order)")
     p.add_argument("--rr", type=int, default=0, metavar="BOUNCE",
                    help="Russian roulette from the given surface event "
                         "on (0 = off, the reference's trace-to-cap "
@@ -143,7 +120,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--serve", type=int, default=None, metavar="PORT",
                    help="serve a live render window over HTTP: frames "
                         "are pushed to the browser as they converge "
-                        "(multipart stream — the headless-TPU analog of "
+                        "(multipart stream — the headless analog of "
                         "the reference's swapchain present, "
                         "display.rs:112-150); 0 picks a free port; with "
                         "--interactive the page's keyboard steers the "
@@ -171,8 +148,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="per-kernel observability like the reference's "
                         "per-sample us report (path_tracer.rs:364): real "
                         "generate/extend/shade/miss/compact wall-us on the "
-                        "wavefront engine (host-stepped), in-kernel "
-                        "iteration/cull counters on the fused engine")
+                        "wavefront engine (host-stepped)")
     p.add_argument("--profile-dir", default=None,
                    help="capture a jax.profiler trace of the first frame "
                         "into this directory (the deep-dive analog of the "
@@ -180,41 +156,14 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def resolve_intersector(engine, intersector, clusters, scene, triangles):
-    """Resolve 'auto' and triangle-scene upgrades; (intersector,
-    clusters, notes).  Shared by the CLI and the interactive REPL.
-
-    Policy for auto (measured, BENCHMARKS.md): baked is 1.3-3x faster
-    but pays a per-scene bake (~30-60 s at ~400 primitives, ~9 min at
-    10k); the dynamic culled path compiles in ~1 min regardless of
-    scene size (structure-only).  Small scenes bake; big ones go
-    dynamic.  Textures require baked on the fused engine.  The XLA
-    engines take their fast default.
-    """
+def resolve_intersector(intersector):
+    """Resolve 'auto' to the production default; (intersector, notes).
+    Shared by the CLI and the interactive REPL."""
     notes = []
     if intersector == "auto":
-        if engine != "fused":
-            intersector = "bruteforce"
-        else:
-            n_prims = len(scene.radii) + (
-                len(triangles.v0) if triangles is not None else 0)
-            # Textures run on both fused paths (baked immediates, or
-            # the dynamic culled path's 24-col table + LUT statics), so
-            # auto picks purely by bake cost vs primitive count.
-            intersector = "baked" if n_prims < 2000 else "bruteforce"
-            if clusters == 0:
-                clusters = -1   # culling on, size by primitive count
-        notes.append(f"note: --intersector auto -> {intersector}"
-                     + (" (clusters auto)" if clusters == -1 else ""))
-    # The fused engine traces triangles via baked or the dynamic culled
-    # path; upgrade plain bruteforce automatically instead of erroring
-    # on the documented flow.
-    if (triangles is not None and engine == "fused"
-            and intersector != "baked" and clusters == 0):
-        intersector = "baked"
-        notes.append("note: triangle scene with --engine fused and no "
-                     "--clusters -> using intersector=baked")
-    return intersector, clusters, notes
+        intersector = DEFAULT_INTERSECTOR
+        notes.append(f"note: --intersector auto -> {intersector}")
+    return intersector, notes
 
 
 def build_scene(args):
@@ -254,10 +203,14 @@ def build_scene(args):
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
-    if args.platform:
-        import jax
+    import jax
 
+    if args.platform:
         jax.config.update("jax_platforms", args.platform)
+    # Always say where the render runs, so a silent CPU run is visible.
+    dev = jax.devices()[0]
+    print(f"device: platform={dev.platform} kind={dev.device_kind} "
+          f"count={len(jax.devices())}", file=sys.stderr)
 
     from wavefront_path_tracer_tpu.renderer import Renderer
     from wavefront_path_tracer_tpu.scene import CameraController
@@ -272,13 +225,7 @@ def main(argv=None) -> int:
 
     scene, triangles, file_cam = build_scene(args)
 
-    if args.engine == "fused" and args.intersector == "bvh":
-        print("error: --engine fused has no bvh intersector (per-lane "
-              "gathers are pathological on TPU); use --intersector baked "
-              "or bruteforce", file=sys.stderr)
-        return 2
-    intersector, clusters, notes = resolve_intersector(
-        args.engine, args.intersector, args.clusters, scene, triangles)
+    intersector, notes = resolve_intersector(args.intersector)
     if not args.quiet:
         for n in notes:
             print(n, file=sys.stderr)
@@ -321,21 +268,14 @@ def main(argv=None) -> int:
     else:
         cc.focus_distance = float(focus)
 
-    overrides = {}
-    if args.tex_lut is not None:
-        overrides["tex_lut_max"] = args.tex_lut
     cfg = RenderConfig(
         width=args.width, height=args.height,
         samples_per_pixel=args.spp, samples_per_frame=args.spf,
         max_bounces=args.max_bounces, frame=args.frame,
         engine=args.engine, intersector=intersector,
-        baked_clusters=clusters, block_tiles=args.block_tiles,
-        winner_hint=args.winner_hint,
-        recluster=args.recluster,
         sampler=args.sampler,
         rr_start_bounce=args.rr, rr_floor=args.rr_floor,
         clamp=args.clamp, stop_delta=args.until_delta,
-        **overrides,
     )
 
     server = None
@@ -386,8 +326,8 @@ def main(argv=None) -> int:
 
         stage_timer = KernelTimer()
         if args.engine == "megakernel":
-            print("note: --stage-timing reports on the wavefront and "
-                  "fused engines only", file=sys.stderr)
+            print("note: --stage-timing reports on the wavefront "
+                  "engine only", file=sys.stderr)
             stage_timer = None
 
     renderer = Renderer(scene, cc, cfg, triangles=triangles,
@@ -423,6 +363,7 @@ def main(argv=None) -> int:
     stats = RenderStats(pixels=cfg.num_pixels)
     t_start = time.perf_counter()
     result = None
+    first = None     # the first frame's (seconds, rays): it pays the compile
     first_frame = True
     while True:
         if first_frame and args.profile_dir:
@@ -436,6 +377,8 @@ def main(argv=None) -> int:
         if r is None:
             break
         result = r
+        if first is None:
+            first = (r.wall_time_s, r.rays_traced)
         fps.update()
         stats.rays_traced += r.rays_traced
         stats.seconds += r.wall_time_s
@@ -481,16 +424,6 @@ def main(argv=None) -> int:
             if stage_timer is not None and stage_timer.averages_us():
                 print(f"         kernels: {stage_timer.report()}",
                       file=sys.stderr)
-            if r.kernel_stats:
-                ks = r.kernel_stats
-                iters = max(1.0, ks["iterations"])
-                line = (f"         fused: {ks['iterations']:.0f} bounce-iters"
-                        f"  {r.rays_traced / (1024.0 * iters):6.1%} lane-occupancy")
-                if ks["clusters_entered"]:
-                    line += (f"  {ks['clusters_entered'] / iters:.1f} "
-                             f"clusters/iter  {ks['supers_entered'] / iters:.1f}"
-                             " supers/iter")
-                print(line, file=sys.stderr)
 
     if result is None:
         print("nothing to render (SPP budget already met)", file=sys.stderr)
@@ -524,31 +457,14 @@ def main(argv=None) -> int:
             f"wrote {args.out}: {cfg.width}x{cfg.height} @ {result.samples} spp "
             f"in {total:.1f}s  [{stats.report()}]", file=sys.stderr,
         )
-    if (args.stage_timing and cfg.engine == "fused"
-            and cfg.intersector == "baked"):
-        # Differential per-stage breakdown (the reference's per-kernel
-        # timestamp report, path_tracer.rs:356-365): each stage's ops
-        # are duplicated in a separate probe compile and the wall-time
-        # delta is its share.  Runs after the render — several extra
-        # bakes, persistently cached.
-        from wavefront_path_tracer_tpu.models.fused import stage_timing
-
-        print("fused stage timing (differential probes, "
-              f"{min(cfg.samples_per_pixel, 32)} spp):", file=sys.stderr)
-        base, rows = stage_timing(
-            renderer.scene_arrays, cc.gpu_camera(),
-            np.asarray(cc.view_matrix()),
-            np.asarray(cc.inverse_projection(cfg.width, cfg.height)),
-            cfg, n_samples=min(cfg.samples_per_pixel, 32))
-        for label, seconds, share in rows:
-            print(f"  {label:34s} {seconds * 1e3:8.2f} ms  {share:6.1%}",
-                  file=sys.stderr)
-        print(f"  {'base render':34s} {base * 1e3:8.2f} ms",
-              file=sys.stderr)
-    elif args.stage_timing and cfg.engine == "fused" and not args.quiet:
-        print("note: the fused differential stage breakdown needs "
-              "--intersector baked; in-kernel iteration/cull counters "
-              "were reported per frame above", file=sys.stderr)
+        # Frames after the first run compiled code: their rate is the
+        # steady-state throughput, and the first frame's excess over a
+        # steady frame is the compile.
+        later_s = stats.seconds - first[0]
+        if later_s > 0:
+            print(f"first frame {first[0]:.3f}s (includes compile); "
+                  f"later frames {(stats.rays_traced - first[1]) / later_s / 1e6:.1f}"
+                  f" Mrays/s in {later_s:.3f}s", file=sys.stderr)
     return 0
 
 

@@ -5,8 +5,8 @@ Each engine module exposes::
     render_samples(scene, cam, view, inv_proj, config, frame, sample_base,
                    n_samples) -> (num_pixels, 3) float32 radiance *sum*
 
-All engines share the RNG stream contract (ops/rng.py) and therefore
-produce bit-identical images on the same backend.
+All engines share the RNG stream contract (ops/rng.py), so with the same
+intersector they integrate the same paths and agree to float rounding.
 """
 
 from wavefront_path_tracer_tpu.models import megakernel, wavefront  # noqa: F401
@@ -17,10 +17,6 @@ def get_engine(name: str):
         return megakernel
     if name == "wavefront":
         return wavefront
-    if name == "fused":  # lazy: pulls in pallas
-        from wavefront_path_tracer_tpu.models import fused
-
-        return fused
     raise KeyError(
-        f"unknown engine {name!r}; have ['fused', 'megakernel', 'wavefront']"
+        f"unknown engine {name!r}; have ['megakernel', 'wavefront']"
     )

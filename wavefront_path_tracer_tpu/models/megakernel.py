@@ -4,8 +4,8 @@ The straight-line per-pixel path tracer the reference never finished
 (its ``cpu_wavefront_pt`` crate is an empty stub): every pixel carries
 its own ray through a masked bounce loop with no queues and no
 compaction.  This is the *golden oracle* — simple enough to trust,
-jittable on CPU and TPU — that the wavefront and fused engines are
-validated against (SURVEY.md §4).
+jittable on CPU and GPU — that the wavefront engine is validated
+against (SURVEY.md §4).
 
 Structure per bounce (mirrors the reference kernel split semantics):
 ray gen (K1) -> intersect (K2) -> shade hits (K3) / sky misses (K4),

@@ -1,11 +1,11 @@
-"""Wavefront integrator: the reference's five-kernel architecture, TPU-native.
+"""Wavefront integrator: the reference's five-kernel architecture in XLA.
 
 Reference architecture (``gpu_wavefront_pt/src/path_tracer.rs:279-371``):
 generate_rays -> [extend -> host counter readback -> shade + miss ->
 host counter readback -> buffer move] x bounces -> accumulate, with
 GPU atomics allocating queue slots.
 
-TPU-native re-design:
+Re-design:
 
 * The whole bounce loop is one on-device ``lax.while_loop`` keyed on the
   live-ray count — the reference's two *blocking host readbacks per
@@ -17,8 +17,8 @@ TPU-native re-design:
   keep shapes static under jit; dead lanes are masked.
 * The extend (intersection) stage optionally runs on ``ray_chunk``-sized
   blocks so compute shrinks with the live count: only
-  ``ceil(count / chunk)`` blocks are intersected per bounce, the TPU
-  analog of sizing the dispatch from the counter readback
+  ``ceil(count / chunk)`` blocks are intersected per bounce, the
+  on-device analog of sizing the dispatch from the counter readback
   (path_tracer.rs:282-289).
 
 Termination is exact (live count == 0 or bounce cap) by default; the
@@ -153,12 +153,9 @@ def trace_wavefront(pixel_idx, scene_arrays, cam, view, inv_proj,
             # winner), so the shade stage runs over contiguous
             # same-material segments.  Dead lanes sort last, which also
             # pre-compacts.  Results are bit-identical (RNG is keyed by
-            # pixel; the radiance scatter is slot-addressed) — on the
-            # TPU's lockstep VPU this buys nothing the branchless
-            # scatter doesn't already have, and costs one permutation
-            # per bounce: measured 0.42x on cornell_spheres / 0.62x on
-            # book_one_final (exp/matsplit_ab.py, BENCHMARKS.md round
-            # 4) — an honest negative result, kept opt-in.
+            # pixel; the radiance scatter is slot-addressed).  It costs
+            # one extra permutation per bounce and is kept opt-in until
+            # a GPU measurement shows divergence savings pay for it.
             key = jnp.where(hit, mat, jnp.int32(3))
             idx32 = jnp.arange(key.shape[0], dtype=jnp.int32)
             _, order0 = jax.lax.sort_key_val(key, idx32, is_stable=True)

@@ -1,10 +1,9 @@
 """Material scattering (the reference's K3, shade.wgsl:84-176).
 
 One branchless vectorized scatter over the whole wavefront: all three
-BSDFs are evaluated masked and selected with ``jnp.where``.  On the TPU
-VPU this beats partition-into-per-material-queues for these three cheap
-materials (no gathers/scatters, no queue management); a per-material
-partitioned path is available in the wavefront engine for A/B.
+BSDFs are evaluated masked and selected with ``jnp.where`` (no
+gathers/scatters, no queue management); a per-material partitioned path
+is available in the wavefront engine for A/B.
 
 RNG contract: every shading event consumes draws from its own
 ``(pixel, frame, sample, bounce)`` stream in a fixed order —
@@ -120,12 +119,11 @@ def scatter_partitioned(state, direction, normal, mat_type, fuzz,
                         refract_idx):
     """Per-material shading over a material-partitioned queue — the
     reference's own TODO ("per-material shade kernels", README.md:19,
-    SURVEY.md §9) realized TPU-style: the caller sorts the queue by
-    material, then each material kernel runs masked over its segment.
+    SURVEY.md §9): the caller sorts the queue by material, then each
+    material kernel runs masked over its segment.
 
-    On the TPU's lockstep vector unit this is usually *slower* than the
-    branchless ``scatter`` (three passes over the queue instead of one);
-    it exists for architecture parity and A/B measurement — enable with
+    It makes three passes over the queue instead of one; it exists for
+    architecture parity and A/B measurement — enable with
     ``RenderConfig(material_split=True)``.  Results match ``scatter``
     exactly (same draws, same per-material math).
     """

@@ -1,8 +1,8 @@
 """Vectorized BVH traversal over ray wavefronts.
 
 The reference traverses per SIMT thread with a 10-deep node-struct stack
-(``extend.wgsl:80-140``).  TPU-native version: the whole wavefront steps
-in lockstep through a masked traversal loop —
+(``extend.wgsl:80-140``).  Here the whole wavefront steps in lockstep
+through one masked XLA traversal loop —
 
 * per-lane state is (current node, stack pointer, index stack) held as
   arrays; node fetches are gathers into the flat BVH tables;

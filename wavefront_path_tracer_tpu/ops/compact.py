@@ -3,13 +3,12 @@
 The reference compacts ray queues with GPU atomic-counter appends
 (``extend.wgsl:66-69``, ``shade.wgsl:155``), which makes queue order —
 and therefore its shade RNG — nondeterministic (SURVEY.md §8 quirk 5).
-TPUs have no global atomics; we compact with a stable sort-by-liveness
-permutation instead, which is fully deterministic: survivors keep their
-relative order at the front of the queue.
+We compact with a stable sort-by-liveness permutation instead, for
+determinism: survivors keep their relative order at the front of the
+queue, so two renders of one config are bit-identical.
 
-``jax.lax.sort`` with a boolean key lowers to an efficient on-device
-bitonic sort; with one extra operand (the lane index) we get the
-permutation and apply it to every SoA queue column with plain gathers.
+``jax.lax.sort_key_val`` with one extra operand (the lane index) gives
+the permutation, applied to every SoA queue column with plain gathers.
 """
 
 from __future__ import annotations

@@ -57,8 +57,7 @@ def intersect_and_resolve(origin, direction, scene_arrays, config):
     p = origin + t[:, None] * direction
     nvec = p - center
     # Inside-out spheres (negative radius, the RTIOW hollow-bubble
-    # trick) flip the normal: (p - c)/r, not /|p - c|.  Matches the
-    # fused engine's sign-only inv_r (pallas_kernels.baked_intersect).
+    # trick) flip the normal: (p - c)/r, not /|p - c|.
     nvec = nvec * jnp.sign(scene_arrays["radii"][sphere_idx])[:, None]
     normal = nvec / jnp.linalg.norm(nvec, axis=-1, keepdims=True)
     albedo = scene_arrays["albedo"][sphere_idx]

@@ -1,8 +1,8 @@
 """Ray-scene intersection (the reference's K2, extend.wgsl:72-210).
 
-TPU-first formulation: instead of one SIMT thread per ray walking
+Wavefront formulation: instead of one SIMT thread per ray walking
 spheres, we intersect a whole ray wavefront against sphere *blocks* with
-dense (rays x spheres) vector math.  The per-pair closest-t selection is
+dense (rays x spheres) vector math that XLA fuses.  The per-pair closest-t selection is
 order-independent (see ``_sphere_hit_t``), so results match the
 reference's sequential nearest-hit loop exactly.
 

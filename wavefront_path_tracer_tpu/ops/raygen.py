@@ -22,10 +22,11 @@ RAYGEN_STREAM = 0  # bounce-slot 0 of the per-event RNG streams
 def _apply_mat(m: jnp.ndarray, v: jnp.ndarray) -> jnp.ndarray:
     """Row-vectors-through-matrix at full f32 precision.
 
-    TPU matmuls default to bf16 MXU passes; the unprojection's
-    w-component is a near-cancellation (-1/(r*zn) + 1/zn ~= 1/zf) that
-    bf16 rounds to exactly 0 -> inf rays.  These are (N,3|4)x(4,4)
-    products — VPU work, not MXU work — so full precision is free.
+    At default precision XLA may run a float32 matmul as TF32 on the
+    GPU's tensor cores (10-bit mantissa); the unprojection's w-component
+    is a near-cancellation (-1/(r*zn) + 1/zn ~= 1/zf) that reduced
+    precision can round to exactly 0 -> inf rays.  These are
+    (N,3|4)x(4,4) products, so full precision costs nothing measurable.
     """
     return jnp.einsum("nk,jk->nj", v, m, precision=jax.lax.Precision.HIGHEST)
 

@@ -1,4 +1,4 @@
-"""Counter-based PCG-RXS-M-XS random number generation, vectorized for TPU.
+"""Counter-based PCG-RXS-M-XS random number generation, vectorized.
 
 The RNG family mirrors the one used by the reference renderer's WGSL
 shaders (PCG-RXS-M-XS output function over a 32-bit LCG state, seeded
@@ -145,8 +145,7 @@ def roulette(pixel_idx, frame, sample, bounce, throughput, alive,
     ``(throughput, alive)``.
 
     Shared by the megakernel and wavefront engines so the stream and
-    semantics stay bit-identical by construction (the fused Pallas
-    kernel carries its own Mosaic-side copy of the same formula).  From
+    semantics stay identical by construction.  From
     surface event ``start_bounce`` on, paths continue with
     ``p = clip(max(throughput), floor, 1)`` and survivors are
     compensated by ``1/p``; the draw uses :func:`rr_state`, so renders

@@ -5,13 +5,9 @@ Kinds (per-sphere ``tex_kind``):
   0 solid    — albedo as stored
   1 checker  — RTIOW 3-D checker: sign of sin(s·x)·sin(s·y)·sin(s·z) at
                the *hit point* selects albedo vs albedo2.  Pure
-               arithmetic — runs in every engine including the fused
-               Pallas kernel (no memory fetch).
+               arithmetic (no memory fetch).
   2 image    — equirect sphere-UV lookup into a stacked RGB texture
-               atlas.  A per-lane gather: supported on the XLA engines
-               (megakernel / wavefront), where HBM gathers are the
-               normal idiom; the fused kernel rejects it (per-lane
-               gathers are pathological on this device).
+               atlas at full resolution: one per-lane gather.
 """
 
 from __future__ import annotations

@@ -2,8 +2,8 @@
 
 No reference analog — the reference renders spheres only; triangle
 meshes are its own future-work list ("load object files",
-README.md:22-26) and BASELINE.json config 5.  Same TPU-first structure
-as ops/intersect.py: dense (rays x triangle-block) vector math via
+README.md:22-26) and BASELINE.json config 5.  Same structure as
+ops/intersect.py: dense (rays x triangle-block) vector math via
 lax.scan, no per-lane gathers.
 
 Triangles are stored SoA as (v0, e1, e2) with e1 = v1 - v0,

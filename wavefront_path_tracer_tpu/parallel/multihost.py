@@ -1,23 +1,24 @@
-"""Multi-host (multi-process) rendering — pod-slice scaling.
+"""Multi-host (multi-process) rendering.
 
 The reference is single-GPU/single-process; ``parallel/sharding.py``
 scales over the chips of ONE process.  This module extends the same
-tile/sample mesh across processes (TPU pod slices, or N CPU processes
-for testing):
+tile/sample mesh across processes (several GPU hosts, or N CPU
+processes for testing):
 
-* ``initialize()`` wraps ``jax.distributed.initialize`` (GCE TPU
-  metadata autodetection when args are omitted).
+* ``initialize()`` wraps ``jax.distributed.initialize``.  Nothing
+  announces a cluster to JAX, so callers pass the coordinator address
+  (``host:port``), process count and process id explicitly.
 * ``make_global_mesh()`` builds the ("tiles", "samples") mesh over ALL
   processes' devices, keeping each process's devices contiguous along
   the *tiles* axis — tile data-parallelism is embarrassingly parallel,
-  so the only cross-host (DCN) traffic is the final radiance gather,
-  while any sample-axis psum stays inside a host (ICI).
+  so the only cross-host network traffic is the final radiance gather,
+  while any sample-axis psum stays inside a host (NVLink).
 * ``render_sharded_global()`` runs the standard sharded render with
   globally-sharded inputs (``jax.make_array_from_callback``) and
   returns this process's addressable tile rows plus their global
   offsets.
 
-Tested without a pod via 2 CPU processes x 4 virtual devices
+Tested without a cluster via 2 CPU processes x 4 virtual devices
 (``tests/multihost_dryrun.py``, spawned by ``test_parallel_multihost``).
 """
 
@@ -45,7 +46,8 @@ def make_global_mesh(sample_axis: int = 1) -> Mesh:
     """("tiles", "samples") mesh over every process's devices.
 
     Device order: process-major, so the tiles axis assigns each process
-    a contiguous band of tiles (DCN only at the gather boundary).  The
+    a contiguous band of tiles (cross-host traffic only at the gather
+    boundary).  The
     sample axis must divide each process's local device count so sample
     psums never cross hosts.
     """
@@ -55,7 +57,7 @@ def make_global_mesh(sample_axis: int = 1) -> Mesh:
     local = jax.local_device_count()
     assert local % sample_axis == 0, (
         f"sample_axis {sample_axis} must divide the per-process device "
-        f"count {local} so sample psums ride ICI, not DCN")
+        f"count {local} so sample psums stay inside one host")
     dev = np.array(devices).reshape(n // sample_axis, sample_axis)
     return Mesh(dev, ("tiles", "samples"))
 

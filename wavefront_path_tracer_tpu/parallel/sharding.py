@@ -1,7 +1,7 @@
 """Multi-chip rendering via jax.sharding + shard_map.
 
 The reference is strictly single-GPU/single-process (SURVEY.md §2.3);
-this module is the scaling layer it never had, designed the TPU way:
+this module is the scaling layer it never had:
 
 * **Pixel data parallelism**: the flat pixel-index space is sharded over
   a 1-D ``Mesh(("tiles",))``; every device traces its own contiguous
@@ -9,16 +9,21 @@ this module is the scaling layer it never had, designed the TPU way:
   and read-only, so replication beats sharding them).  Rays never cross
   devices — path tracing is embarrassingly parallel over pixels — so
   the only collective is the implicit all-gather when the sharded
-  radiance is assembled into the full image, which XLA routes over ICI.
+  radiance is assembled into the full image (over NVLink between the
+  cards of one host).
 * **Sample parallelism** (``sample_axis``): for low-resolution /
   high-spp configs the sample budget is split across a second mesh axis
   and reduced with a ``psum`` — radiance sums are order-independent by
   construction (pure float adds of independent samples).
 
-Because each device runs the *same* per-(pixel,sample,bounce) RNG
-streams it would run single-chip, sharded renders are bit-identical to
-single-chip renders up to the floating-point reduction order of the
-sample psum (exactly identical when sample_axis == 1).
+Each device runs the *same* per-(pixel,sample,bounce) RNG streams it
+would run on one device.  On the CPU backend sharded renders are
+therefore bit-identical to one-device renders up to the floating-point
+reduction order of the sample psum (exactly identical when
+sample_axis == 1).  On the GPU, XLA compiles the per-device module with
+its own fusion choices, so float rounding can differ in the last bit
+and send a few paths another way: the images agree statistically
+(display RMSE ~1e-4 at 1080p @ 16 spp on four H100s), not bit for bit.
 """
 
 from __future__ import annotations
@@ -73,10 +78,9 @@ def render_samples_sharded(
 
     ``global_arrays=True`` is the multi-process mode (parallel/
     multihost.py): inputs are already globally-sharded jax.Arrays, the
-    pixel index is built as a global array in *linear* order (each
-    process owns a contiguous pixel band; the block-tile permutation is
-    skipped because its unscatter gather would cross hosts), and the
-    caller assembles its addressable shards.
+    pixel index is built as a global array (each process owns a
+    contiguous pixel band), and the caller assembles its addressable
+    shards.
     """
     n_tiles = mesh.shape["tiles"]
     n_sample_shards = mesh.shape["samples"]
@@ -86,83 +90,30 @@ def render_samples_sharded(
     samples_per_shard = n_samples // n_sample_shards
     pixels_per_tile = shard_pixels(config, n_tiles)
 
-    # Baked kernels / culling tables must be built from *concrete*
-    # scene data, outside the shard_map trace.
-    baked_fn = None
-    dyn = None
-    dyn_static = None
-    if config.engine == "fused":
-        from wavefront_path_tracer_tpu.models.fused import _resolve_clusters
-
-        clusters = _resolve_clusters(config, scene_arrays)
-    if config.engine == "fused" and config.intersector == "baked":
-        from wavefront_path_tracer_tpu.models.fused import (
-            _baked_fn, _concrete_eye)
-
-        baked_fn = _baked_fn(scene_arrays, clusters,
-                             camera_pos=_concrete_eye(view),
-                             winner_hint=config.winner_hint,
-                             lut_max=config.tex_lut_max)
-    elif (config.engine == "fused" and config.intersector == "bruteforce"
-          and clusters > 0):
-        from wavefront_path_tracer_tpu.models.fused import (
-            _concrete_eye, _dyn_tables, _static_image_luts)
-
-        # closure-captured, replicated
-        dyn, (ngb, ncl, nsup, ntc, ntsup, pkd) = _dyn_tables(
-            scene_arrays, clusters,
-            camera_pos=_concrete_eye(view))
-        dyn_static = (ngb, ncl, nsup, ntc, ntsup, clusters,
-                      _static_image_luts(scene_arrays, config.tex_lut_max),
-                      pkd)
-
     # Per-device trace over its own pixel slab: engines consume a pixel
     # *index* array, so a tile is just a contiguous index range — the
     # engine code is unchanged (SPMD over the index space).
     def tile_fn(pixel_idx, scene_arrays, view, inv_proj, frame, sample_base):
         sshard = jax.lax.axis_index("samples").astype(jnp.uint32)
         base = sample_base + sshard * jnp.uint32(samples_per_shard)
-        if config.engine == "fused" and config.recluster > 0:
-            # Segmented re-clustering engine: each shard coherence-sorts
-            # its own rays locally (no collectives added).
-            from wavefront_path_tracer_tpu.models.fused import (
-                render_pixels_recluster)
-
-            rad, _ = render_pixels_recluster(
-                pixel_idx[0], scene_arrays, cam, view, inv_proj, config,
-                frame, base, samples_per_shard, baked_fn=baked_fn,
-                dyn_tables=dyn, dyn_static=dyn_static,
-            )
-        elif config.engine == "fused":
-            from wavefront_path_tracer_tpu.models.fused import (
-                _effective_split, render_pixels)
-
-            rad, _ = render_pixels(
-                pixel_idx[0], scene_arrays, cam, view, inv_proj, config,
-                frame, base, samples_per_shard, baked_fn,
-                lane_split=_effective_split(config.lane_split,
-                                            samples_per_shard),
-                dyn_tables=dyn, dyn_static=dyn_static,
+        if config.engine == "megakernel":
+            from wavefront_path_tracer_tpu.models.megakernel import (
+                trace_pixels as trace,
             )
         else:
-            if config.engine == "megakernel":
-                from wavefront_path_tracer_tpu.models.megakernel import (
-                    trace_pixels as trace,
-                )
-            else:
-                from wavefront_path_tracer_tpu.models.wavefront import (
-                    trace_wavefront as trace,
-                )
+            from wavefront_path_tracer_tpu.models.wavefront import (
+                trace_wavefront as trace,
+            )
 
-            def one_sample(s, acc):
-                r, _ = trace(
-                    pixel_idx[0], scene_arrays, cam, view, inv_proj, config,
-                    frame, base + jnp.uint32(s),
-                )
-                return acc + r
+        def one_sample(s, acc):
+            r, _ = trace(
+                pixel_idx[0], scene_arrays, cam, view, inv_proj, config,
+                frame, base + jnp.uint32(s),
+            )
+            return acc + r
 
-            acc = jnp.zeros((pixel_idx.shape[1], 3), jnp.float32)
-            rad = jax.lax.fori_loop(0, samples_per_shard, one_sample, acc)
+        acc = jnp.zeros((pixel_idx.shape[1], 3), jnp.float32)
+        rad = jax.lax.fori_loop(0, samples_per_shard, one_sample, acc)
         # Reduce the sample axis; tiles stay sharded until the out_spec
         # gathers them.
         rad = jax.lax.psum(rad, axis_name="samples")
@@ -173,7 +124,6 @@ def render_samples_sharded(
 
         from jax.sharding import NamedSharding
 
-        inv = None
         per_tile = config.num_pixels // n_tiles
         pixel_idx = jax.make_array_from_callback(
             (n_tiles, per_tile),
@@ -186,16 +136,7 @@ def render_samples_sharded(
             (), rep, lambda idx: np_.uint32(frame))
         sample_base = jax.make_array_from_callback(
             (), rep, lambda idx: np_.uint32(sample_base))
-    elif config.engine == "fused" and config.block_tiles:
-        # Hand every shard block-coherent lanes (see fused._block_perm);
-        # unscatter to natural pixel order after the gather.
-        from wavefront_path_tracer_tpu.models.fused import _block_perm
-
-        perm, inv = _block_perm(config.width, config.height,
-                                config.block_tiles)
-        pixel_idx = jnp.asarray(perm).reshape(n_tiles, -1)
     else:
-        inv = None
         pixel_idx = jnp.arange(config.num_pixels, dtype=jnp.uint32).reshape(n_tiles, -1)
 
     sharded = shard_map(
@@ -215,10 +156,7 @@ def render_samples_sharded(
         # reshapes/gathers on non-fully-addressable arrays are invalid;
         # the multihost caller assembles its addressable shards.
         return rad
-    rad = rad.reshape(config.num_pixels, 3)
-    if inv is not None:
-        rad = rad[jnp.asarray(inv)]
-    return rad
+    return rad.reshape(config.num_pixels, 3)
 
 
 @functools.partial(

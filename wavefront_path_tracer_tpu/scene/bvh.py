@@ -17,10 +17,11 @@ Differences (deliberate):
 * BINS defaults to 64, not the reference's 4096 — past ~64 bins SAH
   quality is flat and the reference's choice only burns build time;
 * leaves are capped at ``max_leaf_size`` primitives (median split when
-  SAH declines to split) so the TPU traversal can test leaf primitives
-  with a fixed-width masked loop.  The reference's leaf-if-no-gain rule
-  can yield unbounded leaves, which a SIMT GPU tolerates but a lockstep
-  vector unit should not.
+  SAH declines to split) so the lockstep traversal
+  (ops/bvh_traverse.py) can test leaf primitives with a fixed-width
+  masked loop.  The reference's leaf-if-no-gain rule can yield
+  unbounded leaves, which a per-thread loop tolerates but a fixed-width
+  unroll cannot.
 
 A C++ drop-in of this builder (same flat-array output) lives in
 ``native/``; see ``build_bvh(..., backend="native")``.

@@ -1,9 +1,9 @@
 """Sphere scenes as structure-of-arrays, built on the host with numpy.
 
 Re-expresses the reference's scene model (``wavefront_common/src/scene.rs``,
-``sphere.rs``, ``material.rs``) TPU-first: instead of 32-byte AoS PODs
-uploaded to storage buffers, the scene is a pytree of SoA arrays so the
-intersector can stream sphere blocks through the VPU/MXU.
+``sphere.rs``, ``material.rs``) as structure-of-arrays: instead of
+32-byte AoS PODs uploaded to storage buffers, the scene is a pytree of
+SoA arrays so the intersector can stream sphere blocks as dense vectors.
 
 Material types (reference material.rs:3-10): 0 Lambertian, 1 Metal,
 2 Dielectric.
@@ -26,8 +26,8 @@ class Scene(NamedTuple):
     Sphere tables have length N (number of spheres); material tables have
     length M.  ``mat_albedo/fuzz/refract`` are pre-gathered *per sphere*
     as well (``albedo`` etc.) so the hot path never does a second indexed
-    gather through the material table — a TPU-friendly denormalization
-    the AoS reference could not afford in its 32-byte structs.
+    gather through the material table — a denormalization the AoS
+    reference could not afford in its 32-byte structs.
     """
 
     centers: np.ndarray       # (N, 3) f32

@@ -1,89 +1,61 @@
 """Persistent XLA compilation cache.
 
-TPU compiles of the Pallas kernels take minutes on this toolchain;
-caching them on disk makes every process after the first start fast.
-Call ``enable()`` before the first jit execution (renderer and bench
-do), then ``activate()`` once a backend choice exists (Renderer's
-constructor does) — activation is what actually points JAX at the
-cache directory.
+Compiling a render step for the GPU takes seconds to minutes per
+configuration; a persistent cache lets every later process that renders
+the same configuration skip it.  ``activate()`` attaches the cache once
+the platform choice is final (``prepare_scene`` and ``Renderer`` call
+it).
 
-The cache is **TPU-only**.  XLA:CPU persistent entries are AOT machine
-code whose embedded target tuning must match the loading process
-exactly; deserializing a stale/mismatched entry crashes inside
-``jax._src.compilation_cache.get_executable_and_time`` (observed as
-the round-4 deterministic full-suite SIGSEGV at
-tests/test_texture.py::test_checker_fused_dynamic_culled, faulthandler
-stack pointing at the cache read; the loader also logs "Machine type
+Where the cache lives (``cache_dir``):
+
+* ``JAX_COMPILATION_CACHE_DIR`` set: JAX reads the variable itself and
+  this module sets no directory.
+* otherwise: ``<checkout>/.jax_cache`` (listed in ``.gitignore``).  One
+  fixed path, because the path is part of what makes the cache hit:
+  processes started from the same checkout share their compiles.
+
+The cache is never attached on the CPU backend.  XLA:CPU persistent
+entries are AOT machine code whose embedded target tuning must match
+the loading process exactly; deserializing a mismatched entry can crash
+inside the cache read (SIGILL / SIGSEGV), and XLA logs "Machine type
 used for XLA:CPU compilation doesn't match the machine type for
-execution ... could lead to execution errors such as SIGILL" for
-surviving entries).  CPU compiles are seconds, so the cache buys
-little and carries a native-crash class — never enable it there.
+execution" for such entries.  CPU compiles take seconds, so the cache
+buys little there and carries a native-crash class.
 """
 
 from __future__ import annotations
 
-import hashlib
 import os
-import platform
+from typing import Mapping
 
-_DEFAULT_DIR = os.path.expanduser("~/.cache/wavefront_pt_jax")
-_enabled = False
+ENV_VAR = "JAX_COMPILATION_CACHE_DIR"
+DEFAULT_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), ".jax_cache")
+
 _activated = False
-_path: str | None = None
 
 
-def _host_fingerprint() -> str:
-    """Hash of this host's CPU feature set.
-
-    Defense in depth for heterogenous fleets: XLA cache entries embed
-    host-specific codegen choices, and JAX's cache key does not include
-    the host CPU, so the cache directory is namespaced by a fingerprint
-    — same host: warm cache; different host: clean slate.  (Not
-    sufficient on its own: identical cpuinfo can still produce
-    different embedded tuning across XLA builds, hence the CPU-backend
-    refusal in ``activate()``.)
-    """
-    flags = ""
-    try:
-        with open("/proc/cpuinfo") as f:
-            for line in f:
-                if line.startswith("flags"):
-                    flags = " ".join(sorted(line.split(":", 1)[1].split()))
-                    break
-    except OSError:
-        pass
-    blob = f"{platform.machine()}|{flags}"
-    return hashlib.md5(blob.encode()).hexdigest()[:10]
-
-
-def enable(cache_dir: str | None = None) -> None:
-    """Record the cache directory.  Cheap and import-safe: does NOT
-    initialize a JAX backend (callers may still be choosing a platform
-    via ``jax.config.update('jax_platforms', ...)``)."""
-    global _enabled, _path
-    if _enabled:
-        return
-    path = cache_dir or os.environ.get("WPT_COMPILE_CACHE", _DEFAULT_DIR)
-    _path = os.path.join(path, _host_fingerprint())
-    _enabled = True
+def cache_dir(environ: Mapping[str, str] = os.environ) -> str | None:
+    """The directory this module points JAX at, or None when
+    ``JAX_COMPILATION_CACHE_DIR`` is set (JAX then uses that value)."""
+    if environ.get(ENV_VAR):
+        return None
+    return DEFAULT_DIR
 
 
 def activate() -> None:
-    """Point JAX at the persistent cache iff the default backend is a
-    real accelerator.  Idempotent; call after the platform is decided
-    (first Renderer construction)."""
+    """Attach the persistent cache iff the default backend is not the
+    CPU.  Idempotent; call after the platform is decided."""
     global _activated
-    if _activated or not _enabled:
+    if _activated:
         return
     import jax
 
     _activated = True            # decide once per process
     if jax.default_backend() == "cpu":
         return                   # see module docstring: CPU is unsafe
-    try:
-        os.makedirs(_path, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", _path)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    except Exception:
-        pass
+    path = cache_dir()
+    if path is not None:
+        os.makedirs(path, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", path)

@@ -13,6 +13,15 @@ from __future__ import annotations
 
 import dataclasses
 
+ENGINES = ("wavefront", "megakernel")
+INTERSECTORS = ("bvh", "bruteforce")
+# The production engine and intersector: the fastest combination at the
+# 1080p book_one_final headline on an H100, where the lockstep BVH loop
+# measured ~8x slower than brute force (PERF.md).  The CLI, bench.py,
+# validate.py and the driver entry points all default to these.
+DEFAULT_ENGINE = "wavefront"
+DEFAULT_INTERSECTOR = "bruteforce"
+
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
@@ -27,80 +36,13 @@ class RenderConfig:
     samples_per_frame: int = 1         # reference SPF (parameters.rs:5)
     max_bounces: int = 50              # reference bounce cap (path_tracer.rs:323)
     frame: int = 0                     # RNG frame salt
-    engine: str = "wavefront"          # "megakernel" | "wavefront" | "fused"
-    intersector: str = "bruteforce"    # "bruteforce" | "bvh"
+    engine: str = DEFAULT_ENGINE         # one of ENGINES
+    intersector: str = DEFAULT_INTERSECTOR  # one of INTERSECTORS
     ray_chunk: int = 0                 # 0 = whole wavefront in one chunk
     sphere_chunk: int = 128            # spheres per intersection block
-    tile_rows: int = 8                 # fused engine: tile = tile_rows x 128 rays
     # Wavefront engine: partition the hit queue by material and shade
     # with per-material kernels (the reference's TODO, README.md:19).
     material_split: bool = False
-    # Fused/baked engine: leaf cluster size for hierarchical consensus
-    # culling of spheres AND triangles (0 = no culling; -1 = auto —
-    # measured optima: 16 below 2000 primitives, 32 at 10k;
-    # exp/sweep10k.py).
-    baked_clusters: int = 0
-    # Fused engine: group pixels into NxN image blocks per ray tile so
-    # cluster culling sees spatially coherent lanes (0 = linear order).
-    block_tiles: int = 32
-    # Fused engine: split each pixel's sample budget over K duplicate
-    # lanes — cuts the persistent-loop tail (a tile runs as long as its
-    # slowest lane) at the cost of K x input planes.  Auto-reduced to a
-    # divisor of the frame's sample count.
-    lane_split: int = 1
-    # Fused engine: rotate which pixel of the tile a lane traces each
-    # sample (lane (r,c)'s k-th sample -> pixel row (r+k) % tile_rows),
-    # averaging per-lane work over tile_rows pixels — the heavy-pixel
-    # straggler fix.  Same (pixel, sample) RNG streams either way; only
-    # float summation order changes.
-    lane_rotate: bool = True
-    # Fused engine: column phases for the rotation above.  A tile row
-    # holds 4 image rows x 32 columns, so row rotation alone never
-    # varies a lane's image column; with N > 1 every rows-th sample
-    # also shifts the lane's image column by 32/N, spreading vertically
-    # coherent hotspots (sphere silhouettes) at the cost of N x more
-    # in-kernel accumulator planes.  Power of two dividing 32.
-    # Measured at the 1080p headline: N=2 is a wash, N=4 loses ~5%
-    # (the extra selects eat the utilization gain) — default stays 1.
-    lane_rotate_cols: int = 1
-    # Fused/baked engine: texel budget per image texture.  Per-lane
-    # texel gathers are pathological on TPU, so image textures bake to
-    # mean-pooled LUTs evaluated by a when-gated select tree whose cost
-    # is O(texels) *only for tiles that see the sphere* — raise for
-    # fidelity (the XLA engines always sample full resolution), lower
-    # for speed on texture-heavy tiles.  RGB is packed 10:10:10 into
-    # one int32 tree (quantization <= 1/1023 per channel), so the cost
-    # per texel is a third of the per-channel-float form.  Measured
-    # fidelity/cost curve vs the XLA full-res oracle on a mixed-content
-    # 256x128 texture (exp/texlut.py, TPU, 400x224@64):
-    #   512 -> 3.1e-2, 2048 -> 7.2e-3, 8192 -> 3.0e-3 (+15% render
-    #   cost), 32768 (full res) -> 1.7e-4 (2x render cost).
-    # 8192 is the knee: pooling error ~ the same-stream texture gate
-    # (3e-3) at modest cost.  Budgets above ~4k texels need the raised
-    # kernel VMEM limit (pallas_kernels: vmem_limit_bytes=100M).
-    tex_lut_max: int = 8192
-    # Fused/baked culled engine: winner-cluster shortlist.  Each lane
-    # remembers which cluster its last hit came from; the next
-    # intersect prepass-tests exactly those clusters so the consensus
-    # cap is tight before the main sweep — the temporal-coherence
-    # answer to incoherent bounce rays, which defeat front-to-back
-    # ordering.  Results identical up to float-tie iteration order.
-    winner_hint: bool = False
-    # Fused engine: ray-coherence re-clustering segment length (0 =
-    # off).  The persistent kernel binds a lane to a pixel for a whole
-    # sample, so after the first diffuse bounce a tile's rays decohere
-    # and whole-tile consensus culling degenerates (50k-tri knot: most
-    # clusters entered every iteration).  With K > 0 each sample runs
-    # as SEGMENTS: K bounces in-kernel, then live rays are re-sorted by
-    # direction octant x origin Morton cell (dead rays to the back), so
-    # a tile's lanes share a frustum again.  Segment lengths double
-    # after the second segment (coherence matters most while most rays
-    # live), so sorts are O(log(max_bounces / K)) per sample.  Identical
-    # per-(pixel,sample,bounce) RNG streams — parity with the other
-    # engines is unchanged.  Measured win on incoherent scenes
-    # (BENCHMARKS.md round 4); a loss on small coherent scenes where
-    # culling already skips little.
-    recluster: int = 0
     # Multi-chip: number of devices to shard pixels over (1 = single chip).
     num_devices: int = 1
     # Russian roulette: 0 disables (default — matches the reference's
@@ -142,9 +84,8 @@ class RenderConfig:
     drain_threshold: int = 0
 
     def __post_init__(self) -> None:
-        # A negative start bounce would silently diverge the engines:
-        # XLA engines treat it as "always active" (int compare) while
-        # the fused kernel's u32 cast makes it "never active".
+        # A negative start bounce has no meaning: the engines compare it
+        # against a bounce index, so it would read as "always active".
         if self.rr_start_bounce < 0:
             raise ValueError(
                 f"rr_start_bounce must be >= 0, got {self.rr_start_bounce} "
@@ -156,9 +97,6 @@ class RenderConfig:
             raise ValueError(
                 f"rr_floor must be in (0, 1], got {self.rr_floor} "
                 "(a zero floor would divide by a zero continue probability)")
-        if self.tex_lut_max < 4:
-            raise ValueError(
-                f"tex_lut_max must be >= 4, got {self.tex_lut_max}")
         if self.clamp < 0.0:
             raise ValueError("clamp must be >= 0 (0 disables)")
         if self.stop_delta < 0.0:
@@ -167,37 +105,13 @@ class RenderConfig:
             raise ValueError(
                 f"sampler must be 'random' or 'stratified', "
                 f"got {self.sampler!r}")
-        if self.baked_clusters < -1:
+        if self.engine not in ENGINES:
             raise ValueError(
-                f"baked_clusters must be >= -1, got {self.baked_clusters} "
-                "(-1 = auto, 0 = no culling, N = leaf cluster size)")
-        if self.recluster < 0:
+                f"engine must be one of {ENGINES}, got {self.engine!r}")
+        if self.intersector not in INTERSECTORS:
             raise ValueError(
-                f"recluster must be >= 0, got {self.recluster} "
-                "(0 disables segment re-sorting)")
-        if self.recluster > 2:
-            # Measured, not hypothetical: recluster=4 repeatably crashes
-            # the TPU worker (round-4 BENCHMARKS: the fused 8-key sort's
-            # scoped VMEM at K>=3 segment sizes exceeds what Mosaic can
-            # schedule and takes down the device, not the process).  A
-            # shipped flag must not kill the worker, so refuse up front.
-            raise ValueError(
-                f"recluster must be <= 2, got {self.recluster}: segment "
-                "counts above 2 are refused because the fused segment "
-                "sort at K>=3 crashes the TPU worker (measured at K=4, "
-                "BENCHMARKS.md round 4). Use recluster=2, which doubles "
-                "segment lengths after the second segment and covers "
-                "deep bounce chains already")
-        if self.recluster > 0 and self.winner_hint:
-            raise ValueError(
-                "recluster and winner_hint are mutually exclusive: the "
-                "segment kernel carries no shortlist plane (re-sorting "
-                "replaces temporal hints as the coherence mechanism)")
-        if self.winner_hint and self.baked_clusters == 0:
-            raise ValueError(
-                "winner_hint requires baked_clusters > 0 (the shortlist "
-                "prepasses the cull hierarchy's clusters; without "
-                "clustering it would silently do nothing)")
+                f"intersector must be one of {INTERSECTORS}, "
+                f"got {self.intersector!r}")
 
     @property
     def num_pixels(self) -> int:

@@ -2,7 +2,7 @@
 reference's swapchain presentation (``gpu_wavefront_pt/src/display.rs:
 112-150``, per-frame present; continuous redraw ``app.rs:102-121``).
 
-A TPU host is headless, so instead of a local window the renderer
+A GPU server is headless, so instead of a local window the renderer
 serves one over HTTP: point any browser at ``http://host:port/`` and
 watch the frame converge live.  Frames are *pushed*, not polled — the
 ``/stream`` endpoint speaks ``multipart/x-mixed-replace`` (the MJPEG

@@ -1,12 +1,12 @@
 """Instrumentation: per-stage timing, FPS, and throughput accounting.
 
-Re-expresses the reference's observability stack TPU-side:
+Re-expresses the reference's observability stack in JAX:
 
 * ``KernelTimer`` — the analog of the GPU timestamp-query machinery
   (``gpu_wavefront_pt/src/query_gpu.rs``): named stages with a 10-deep
-  running average (query_gpu.rs:17).  On TPU, stages are jit calls
-  timed with ``block_until_ready`` wall clock; for intra-kernel detail
-  use ``jax.profiler.trace`` (see ``trace_to``).
+  running average (query_gpu.rs:17).  Stages are jit calls timed with
+  ``block_until_ready`` wall clock; for per-kernel device times use
+  ``jax.profiler.trace`` (see ``trace_to``).
 * ``FramesPerSecond`` — 10-frame moving average
   (``wavefront_common/src/frames_per_second.rs``).
 * ``RenderStats`` — per-frame ray/bounce accounting and Mrays/s, the
